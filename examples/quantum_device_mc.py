@@ -1,9 +1,8 @@
-"""Quantum LER estimation with the on-chip Monte-Carlo pipeline.
+"""Quantum LER estimation with the device-resident Monte-Carlo pipeline.
 
 The whole loop (error sampling, syndrome extraction, BP+OSD decoding,
 logical-failure tallies) runs on the accelerator; only counters return
-to the host. On a TPU v5e this decodes >1M syndromes/s on a d=13
-surface code.
+to the host.
 """
 
 from ldpc_tpu.codes import surface_code

@@ -2,7 +2,7 @@
 reference workload: examples/sinter_example_owd.py — repetition-code
 memory circuits decoded in sliding windows with BPOSD/LSD/PyMatching).
 
-The OWD sinter wrappers decode every window batch through the TPU
+The OWD sinter wrappers decode every window batch through the batched
 ``decode_batch`` path, so each sinter worker streams its whole shot file
 through the accelerator instead of looping shot by shot.
 """

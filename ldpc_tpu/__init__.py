@@ -1,18 +1,18 @@
-"""ldpc_tpu — a TPU-native framework for decoding classical and quantum LDPC codes.
+"""ldpc_tpu — a batched JAX framework for decoding classical and quantum LDPC codes.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of the reference
+A ground-up JAX/XLA re-design with the capabilities of the reference
 ``ldpc`` package (quantumgizmos/ldpc v2.4.1): belief-propagation decoders
 (product-sum / min-sum; parallel, serial, serial-relative schedules), OSD,
 LSD, union-find/BeliefFind, flip/p-flip and MBP post-processing, GF(2)
 linear algebra, code constructions, Monte-Carlo simulation harnesses and
 circuit-level (DEM / overlapping-window) decoding.
 
-Design notes (TPU-first, not a port):
+Design notes (batched, not a port):
 - decoding is *batched*: thousands of syndromes decode simultaneously;
   the syndrome batch is the data-parallel axis sharded over a device mesh.
-- BP message passing is gather-free: messages live in a check-major padded
-  edge layout ``(E, batch)`` and variable-side reductions ride the MXU via
-  a constant edge-selection matrix.
+- BP message passing keeps messages in a check-major padded edge layout
+  ``(E, batch)``; each iteration is row gathers plus dense reductions over
+  the small check and variable degrees.
 - GF(2) fallbacks (OSD/LSD/UF solves) run device-side on the compacted
   failed-syndrome subset.
 """

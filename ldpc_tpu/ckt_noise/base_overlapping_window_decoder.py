@@ -6,7 +6,7 @@ each window's correction commits for the first ``commit`` rounds, the
 committed correction's syndrome propagates forward, and committed
 error mechanisms are re-weighted to certainty for later windows.
 
-TPU-native difference: ``decode_batch`` feeds every shot of a window to
+Batched difference: ``decode_batch`` feeds every shot of a window to
 the underlying decoder in ONE ``decode_batch`` call — the reference
 loops shot-by-shot in Python (base_overlapping_window_decoder.py:210-218),
 which is the throughput bottleneck this framework removes. Windows stay

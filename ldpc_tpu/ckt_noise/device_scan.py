@@ -196,41 +196,17 @@ def make_device_owd(
     probs_mid[: uw.lookback] = min_weight
     llr_mid = jnp.asarray(bp_ops.channel_llr(probs_mid, dtype=np.float32))
 
-    bp_fn = None
-    if jax.default_backend() == "tpu":
-        try:
-            from ldpc_tpu.ops.bp_pallas import make_parallel_decoder_pallas
-
-            bp_fn = make_parallel_decoder_pallas(
-                graph, method, max_iter, ms_scaling_factor
-            )
-        except ValueError as exc:
-            if "VMEM budget" not in str(exc):
-                raise
-    if bp_fn is None:
-        bp_fn = bp_ops.make_parallel_decoder(
-            graph, method, max_iter, ms_scaling_factor
-        )
+    bp_fn = bp_ops.make_parallel_decoder(
+        graph, method, max_iter, ms_scaling_factor
+    )
     if postprocess == "osd0":
-        post = None
-        if jax.default_backend() == "tpu":
-            try:
-                from ldpc_tpu.ops.gf2_pallas import make_osd0_solver
+        from ldpc_tpu.ops import osd as osd_ops
 
-                post = make_osd0_solver(graph)
-            except ValueError as exc:
-                if "VMEM budget" not in str(exc):
-                    raise
-        if post is None:
-            from ldpc_tpu.ops import osd as osd_ops
+        _xla = osd_ops.make_osd_decoder(graph, probs_mid, osd_ops.OSD_0, 0)
 
-            _xla = osd_ops.make_osd_decoder(
-                graph, probs_mid, osd_ops.OSD_0, 0
-            )
-
-            def post(syn, llr):
-                d0, _, valid = _xla(syn, llr)
-                return d0, valid
+        def post(syn, llr):
+            d0, _, valid = _xla(syn, llr)
+            return d0, valid
 
     elif postprocess == "lsd0":
         from ldpc_tpu.ops import lsd as lsd_ops

@@ -15,10 +15,7 @@ import scipy.sparse
 
 import jax.numpy as jnp
 
-from ldpc_tpu.decoders.base import (
-    BpDecoderBase,
-    _tpu_kernel_unavailable,
-)
+from ldpc_tpu.decoders.base import BpDecoderBase
 from ldpc_tpu.ops import uf as uf_ops
 
 
@@ -128,26 +125,21 @@ class BeliefFindDecoder(BpDecoderBase):
         if self._fused_ok():
             # single-dispatch fused cascade: phase-1 BP, device top-K
             # compaction, full-depth BP + union-find, ONE D2H pull
-            try:
-                out, _bpd = self._decode_batch_fused(
-                    syndromes,
-                    nonzero,
-                    post_key=("uf", self._uf_method, self.bits_per_step),
-                    post_builder=lambda: (lambda s, l: fn(s, l)[0]),
-                    bit_packed_output=bit_packed_output,
-                )
-                self._decoding = (
-                    out[0]
-                    if not bit_packed_output
-                    else np.unpackbits(
-                        out[:1], axis=1, count=self.n, bitorder="little"
-                    )[0]
-                )
-                return out
-            except Exception as exc:  # noqa: BLE001 — see guard below
-                if not _tpu_kernel_unavailable(exc):
-                    raise
-                self._fused_unavailable = True
+            out, _bpd = self._decode_batch_fused(
+                syndromes,
+                nonzero,
+                post_key=("uf", self._uf_method, self.bits_per_step),
+                post_builder=lambda: (lambda s, l: fn(s, l)[0]),
+                bit_packed_output=bit_packed_output,
+            )
+            self._decoding = (
+                out[0]
+                if not bit_packed_output
+                else np.unpackbits(
+                    out[:1], axis=1, count=self.n, bitorder="little"
+                )[0]
+            )
+            return out
         # device-compacted cascade: full-depth BP + union-find run only
         # on the non-converged bucket, one combined D2H pull
         # (base.py:_postprocess_cascade_batch)

@@ -129,28 +129,23 @@ class BpFlipDecoder(BpDecoderBase):
 
     def _fused_fn(self, sparse_plan=None):
         """One device program per chunk: unpack packed syndromes -> flip
-        -> residual (one-hot MXU matmul) -> fused-VMEM BP -> XOR -> ONE
-        packed export. The previous path pulled the flip decodings to
-        the host, ran a dense (B, n) x (n, m) NumPy GEMM for the
-        residual and re-uploaded it — 3 link crossings and seconds of
-        host matmul per 65k batch."""
+        -> residual (0/1 matmul) -> BP -> XOR -> ONE packed export, so
+        the flip decodings never round-trip through the host for the
+        residual."""
         if getattr(self, "_bpf_cache", None) is None:
             self._bpf_cache = {}
-        fn = self._bpf_cache.get(sparse_plan)
+        key = (sparse_plan, self._channel.tobytes(), self._config_key())
+        fn = self._bpf_cache.get(key)
         if fn is not None:
             return fn
         import jax
 
         from ldpc_tpu.decoders import base as _base
-        from ldpc_tpu.ops import bp_pallas, gf2
+        from ldpc_tpu.ops import gf2
 
         m, n = self.m, self.n
         flip_inner = self._flip._fn
-        interp = getattr(self, "_fused_interpret", False)
-        bp_fn = bp_pallas.make_parallel_decoder_pallas(
-            self.graph, self._bp_method, self._max_iter,
-            self._ms_scaling_factor, interpret=interp,
-        )
+        bp_fn = self._make_parallel_bp(self._max_iter)
         Hf = jnp.asarray(self.graph.dense.astype(np.float32))  # (m, n)
         init_llr = jnp.asarray(self._init_llr())
         it_jdt = _base._iters_dtype(self._max_iter)[0]
@@ -201,17 +196,21 @@ class BpFlipDecoder(BpDecoderBase):
             )
 
         fn = jax.jit(program)
-        self._bpf_cache[sparse_plan] = fn
+        self._bpf_cache[key] = fn
         return fn
 
     def decode_batch(self, syndromes: np.ndarray) -> np.ndarray:
+        syndromes = np.atleast_2d(np.asarray(syndromes, dtype=np.uint8))
+        nonzero = syndromes.any(axis=1)
+        if not self._fused_ok():
+            return self._decode_batch_host(syndromes, nonzero)
+        return self._decode_batch_fused_flip(syndromes, nonzero)
+
+    def _decode_batch_fused_flip(self, syndromes, nonzero):
+        """Chunked single-pull decode over :meth:`_fused_fn`."""
         from ldpc_tpu.decoders import base as _base
 
-        syndromes = np.atleast_2d(np.asarray(syndromes, dtype=np.uint8))
         B0 = syndromes.shape[0]
-        nonzero = syndromes.any(axis=1)
-        if not (self._fused_ok() or getattr(self, "_fused_interpret", False)):
-            return self._decode_batch_host(syndromes, nonzero)
         Wb = -(-self.n // 8)
         wbar = float(np.sum(self._channel))
         it_ndt, it_size = _base._iters_dtype(self._max_iter)[1:]
@@ -285,7 +284,7 @@ class BpFlipDecoder(BpDecoderBase):
         return out
 
     def _decode_batch_host(self, syndromes, nonzero):
-        """XLA fallback (CPU / codes too large for the fused kernels)."""
+        """Flip on the device, residual and XOR on the host."""
         flip_dec = self._flip.decode_batch(syndromes)
         residual = (
             syndromes

@@ -17,10 +17,7 @@ import scipy.sparse
 
 import jax.numpy as jnp
 
-from ldpc_tpu.decoders.base import (
-    BpDecoderBase,
-    _tpu_kernel_unavailable,
-)
+from ldpc_tpu.decoders.base import BpDecoderBase
 from ldpc_tpu.decoders.lsd_common import (
     METHOD_NAMES,
     Statistics,
@@ -230,36 +227,30 @@ class BpLsdDecoder(BpDecoderBase):
             fused = None
             if self._fused_ok():
                 # single-dispatch fused cascade (base.py): ONE D2H pull
-                try:
-                    fn = self._lsd_decode_fn()
-                    fused, bpd_lazy = self._decode_batch_fused(
-                        syndromes,
-                        nonzero,
-                        post_key=(
-                            "lsd",
-                            self._lsd_method,
-                            self._lsd_order,
-                            self.bits_per_step,
-                        ),
-                        post_builder=lambda: (lambda s, l: fn(s, l)[0]),
-                        bit_packed_output=bit_packed_output,
-                    )
-                    out = fused
-                    conv = self.converge_batch
-                    llr_row0 = self._log_prob_ratios  # device row; lazy
-                    self._bp_decoding_lazy = bpd_lazy
-                    self._bp_decoding = None
-                    if bit_packed_output:
-                        self._decoding = np.unpackbits(
-                            out[:1], axis=1, count=self.n, bitorder="little"
-                        )[0]
-                    else:
-                        self._decoding = out[0]
-                except Exception as exc:  # noqa: BLE001 — see guard below
-                    if not _tpu_kernel_unavailable(exc):
-                        raise
-                    self._fused_unavailable = True
-                    fused = None
+                fn = self._lsd_decode_fn()
+                fused, bpd_lazy = self._decode_batch_fused(
+                    syndromes,
+                    nonzero,
+                    post_key=(
+                        "lsd",
+                        self._lsd_method,
+                        self._lsd_order,
+                        self.bits_per_step,
+                    ),
+                    post_builder=lambda: (lambda s, l: fn(s, l)[0]),
+                    bit_packed_output=bit_packed_output,
+                )
+                out = fused
+                conv = self.converge_batch
+                llr_row0 = self._log_prob_ratios  # device row; lazy
+                self._bp_decoding_lazy = bpd_lazy
+                self._bp_decoding = None
+                if bit_packed_output:
+                    self._decoding = np.unpackbits(
+                        out[:1], axis=1, count=self.n, bitorder="little"
+                    )[0]
+                else:
+                    self._decoding = out[0]
             if fused is None:
                 # device-compacted cascade: one combined D2H pull
                 # (base.py:_postprocess_cascade_batch)

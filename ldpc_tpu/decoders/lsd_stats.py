@@ -13,7 +13,7 @@ timestep is identical by construction — and derives the statistics on
 the host.
 
 Cluster-id convention: the reference ids clusters by creation order and
-keeps the LARGER cluster on merge (lsd.hpp:190-293); the TPU engine's
+keeps the LARGER cluster on merge (lsd.hpp:190-293); the batched engine's
 min-label propagation keeps the LOWEST seed-check index. Cluster
 *contents* per timestep are identical; only which id survives a merge
 differs (deterministically).

@@ -2,7 +2,7 @@
 
 API parity with ``ldpc.monte_carlo_simulation`` (reference:
 src_python/ldpc/monte_carlo_simulation/), re-designed batch-first: the
-TPU decode path wants thousands of syndromes per dispatch, so the BSC
+device decode path wants thousands of syndromes per dispatch, so the BSC
 simulation samples and decodes whole batches instead of the reference's
 one-syndrome-per-loop (mcs.py:116-149).
 """

@@ -6,14 +6,13 @@ estimation: sample a BSC error, compute its syndrome, decode, compare
 python_test/test_qcodes.py:33-92). Its loop runs one syndrome at a time
 through C++. Here the WHOLE pipeline lives on the accelerator:
 
-    keys -> bernoulli errors -> syndromes (MXU) -> fused BP (pallas)
-         -> top-K compaction -> fused OSD-0 (pallas) -> logical check
+    keys -> bernoulli errors -> syndromes (0/1 matmul) -> phase-1 BP
+         -> top-K compaction -> full-depth BP -> OSD-0 -> logical check
          -> counter psum
 
 Several rounds run inside one jitted call (``lax.fori_loop``), so a
 single scalar-sized host pull amortises over millions of syndromes —
-this is the configuration the TPU was built for, and the benchmark
-headline.
+the benchmark headline.
 
 Multi-chip: the per-round batch is sharded over the mesh ``batch`` axis
 by ``shard_map`` in :mod:`ldpc_tpu.parallel` users; counters are plain
@@ -48,9 +47,7 @@ def make_mc_decoder_step(
     ms_scaling_factor: float = 0.625,
     osd_method: str = "osd_0",
     bucket_fraction: int = 8,
-    use_pallas: Optional[bool] = None,
     phase1_iters: Optional[int] = None,
-    bf16_matmul: bool = False,
 ):
     """Build a jitted Monte-Carlo step ``fn(key) -> counters``.
 
@@ -83,7 +80,7 @@ def make_mc_decoder_step(
     K = min(B, max(128, _round_up(B // bucket_fraction, 128)))
     channel = np.full(n, error_rate)
     init_llr = jnp.asarray(bp_ops.channel_llr(channel))
-    H = jnp.asarray(graph.dense.astype(np.float32))  # (m, n) for MXU syndrome
+    H = jnp.asarray(graph.dense.astype(np.float32))  # (m, n) 0/1 syndrome map
     p = jnp.asarray(channel, jnp.float32)
     L = (
         jnp.asarray(
@@ -106,69 +103,46 @@ def make_mc_decoder_step(
         phase1_iters = min(max_iter, 6)
     two_phase = phase1_iters < max_iter
 
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        try:
-            from ldpc_tpu.ops.bp_pallas import make_parallel_decoder_pallas
-            from ldpc_tpu.ops.gf2_pallas import make_osd0_solver
+    from ldpc_tpu.ops import osd as osd_ops
 
-            def mk_bp(iters):
-                return make_parallel_decoder_pallas(
-                    graph, method, iters, ms_scaling_factor,
-                    bf16_matmul=bf16_matmul,
-                )
+    bp_fn = bp_ops.make_parallel_decoder(
+        graph, method, phase1_iters if two_phase else max_iter,
+        ms_scaling_factor
+    )
+    bp2_fn = (
+        bp_ops.make_parallel_decoder(graph, method, max_iter, ms_scaling_factor)
+        if two_phase
+        else None
+    )
+    osd_fn = (
+        osd_ops.make_osd_decoder(graph, channel, osd_ops.OSD_0, 0)
+        if run_osd
+        else None
+    )
 
-            bp_fn = mk_bp(phase1_iters if two_phase else max_iter)
-            bp2_fn = mk_bp(max_iter) if two_phase else None
-            osd_fn = make_osd0_solver(graph) if run_osd else None
-        except ValueError as exc:
-            if "VMEM budget" not in str(exc):
-                raise
-            use_pallas = False  # code too large: XLA engines instead
-    if not use_pallas:
-        from ldpc_tpu.ops import osd as osd_ops
-
-        bp_fn = bp_ops.make_parallel_decoder(
-            graph, method, phase1_iters if two_phase else max_iter,
-            ms_scaling_factor
-        )
-        bp2_fn = (
-            bp_ops.make_parallel_decoder(
-                graph, method, max_iter, ms_scaling_factor
-            )
-            if two_phase
-            else None
-        )
-        if run_osd:
-            _xla_osd = osd_ops.make_osd_decoder(
-                graph, channel, osd_ops.OSD_0, 0
-            )
-
-            def osd_fn(syn_f, llr_f):
-                d0, _, valid = _xla_osd(syn_f, llr_f)
-                return d0, valid
-
-        else:
-            osd_fn = None
-
+    # named scopes label each stage's device kernels in a profiler trace
     def one_round(key):
-        u = jax.random.uniform(key, (B, n), jnp.float32)
-        errors = (u < p[None, :]).astype(jnp.uint8)
-        syn_f32 = jnp.dot(
-            errors.astype(jnp.float32), H.T, preferred_element_type=jnp.float32
-        )
-        syn = (syn_f32 - 2.0 * jnp.floor(syn_f32 * 0.5)).astype(jnp.uint8)
-        bp = bp_fn(syn, init_llr)
+        with jax.named_scope("sample"):
+            u = jax.random.uniform(key, (B, n), jnp.float32)
+            errors = (u < p[None, :]).astype(jnp.uint8)
+            syn_f32 = jnp.dot(
+                errors.astype(jnp.float32), H.T,
+                preferred_element_type=jnp.float32,
+            )
+            syn = (syn_f32 - 2.0 * jnp.floor(syn_f32 * 0.5)).astype(jnp.uint8)
+        with jax.named_scope("phase1_bp"):
+            bp = bp_fn(syn, init_llr)
         conv = bp.converged
         iters = bp.iterations
         nfail_p1 = (~conv).sum().astype(jnp.int32)
         if two_phase or osd_fn is not None:
-            order = jnp.argsort(conv, stable=True)  # failed first
-            idx = order[:K]
-            syn_sub = jnp.take(syn, idx, axis=0)
+            with jax.named_scope("compact"):
+                order = jnp.argsort(conv, stable=True)  # failed first
+                idx = order[:K]
+                syn_sub = jnp.take(syn, idx, axis=0)
             if two_phase:
-                bp2 = bp2_fn(syn_sub, init_llr)
+                with jax.named_scope("bucket_bp"):
+                    bp2 = bp2_fn(syn_sub, init_llr)
                 sub_dec, sub_conv = bp2.decoding, bp2.converged
                 sub_llr, sub_iters = bp2.llr_posterior, bp2.iterations
             else:
@@ -177,17 +151,19 @@ def make_mc_decoder_step(
                 sub_llr = jnp.take(bp.llr_posterior, idx, axis=0)
                 sub_iters = jnp.take(iters, idx)
             if osd_fn is not None:
-                x0, _ = osd_fn(syn_sub, sub_llr)
+                with jax.named_scope("osd0"):
+                    x0, _, _ = osd_fn(syn_sub, sub_llr)
                 merged = jnp.where(sub_conv[:, None], sub_dec, x0)
             else:
                 merged = sub_dec
-            decoding = bp.decoding.at[idx].set(merged)
-            conv = conv.at[idx].set(sub_conv)
-            iters = iters.at[idx].set(sub_iters)
+            with jax.named_scope("merge"):
+                decoding = bp.decoding.at[idx].set(merged)
+                conv = conv.at[idx].set(sub_conv)
+                iters = iters.at[idx].set(sub_iters)
         else:
             decoding = bp.decoding
         residual = errors ^ decoding
-        if L is not None:
+        if L is not None:  # logical check: 0/1 matmul, exact at any precision
             lf32 = jnp.dot(
                 residual.astype(jnp.float32),
                 L.T,
@@ -229,9 +205,9 @@ def make_sharded_mc_step(
     batch_size_per_device: int = 16384,
     **kwargs,
 ):
-    """Multi-chip Monte-Carlo step: data-parallel over the mesh ``batch``
-    axis via ``jax.shard_map``; every device runs the full on-chip
-    pipeline on its own PRNG stream and the counters ride one ICI psum.
+    """Multi-device Monte-Carlo step: data-parallel over the mesh
+    ``batch`` axis via ``jax.shard_map``; every device runs the full
+    pipeline on its own PRNG stream and the counters ride one psum.
 
     Returns ``(step, runs_per_call)`` where ``step(key)`` -> replicated
     (6,) int32 counters. Scaling is embarrassingly parallel — the PCM

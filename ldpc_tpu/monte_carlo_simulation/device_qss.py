@@ -11,7 +11,7 @@ memory_experiment_v2.py:72-160).
 Here the WHOLE experiment lives on the accelerator, batched over shots:
 
     keys -> per-round Pauli sampling with residual feedback
-         -> syndrome extraction (MXU) + measurement noise (binary or
+         -> syndrome extraction (0/1 matmul) + measurement noise (binary or
             analog-Gaussian)
          -> sliding-window decode on the space-time PCM (fused BP +
             OSD-0 fallback) inside a ``lax.scan`` over windows
@@ -62,7 +62,6 @@ def make_qss_step(
     bp_method: str = "minimum_sum",
     ms_scaling_factor: float = 0.625,
     osd: bool = True,
-    use_pallas: Optional[bool] = None,
 ):
     """Build a jitted batched QSS step ``fn(key) -> counters``.
 
@@ -125,7 +124,6 @@ def make_qss_step(
         bp_method=bp_method,
         ms_scaling_factor=ms_scaling_factor,
         osd=osd,
-        use_pallas=use_pallas,
         sigma=sigma,
     )
 
@@ -285,7 +283,7 @@ def make_sharded_qss_step(
 ):
     """Multi-chip QSS: data-parallel over the mesh ``batch`` axis via
     ``jax.shard_map``; every device simulates its own shots on its own
-    PRNG stream and the counters ride one ICI psum."""
+    PRNG stream and the counters ride one psum."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from ldpc_tpu.parallel import BATCH_AXIS, make_mesh

@@ -2,7 +2,7 @@
 //
 // The reference backs its mod2 toolbox with header-only C++ eliminations
 // (reference: src_cpp/gf2dense.hpp, gf2sparse_linalg.hpp). This is the
-// TPU framework's native equivalent for the host/setup-time path: rows
+// framework's native equivalent for the host/setup-time path: rows
 // are packed 64 columns per uint64 word and eliminated with word-wide
 // XORs. Loaded via ctypes by ldpc_tpu.mod2._gf2core with a pure-numpy
 // fallback when the shared library has not been built.

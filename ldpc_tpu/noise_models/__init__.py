@@ -21,7 +21,7 @@ def generate_bsc_error_batch(
 ) -> jnp.ndarray:
     """Device-side batched BSC sampler: (batch, n) uint8 errors.
 
-    The TPU-native path for Monte-Carlo loops — errors are drawn with
+    The device path for Monte-Carlo loops — errors are drawn with
     ``jax.random`` on device so the sampling joins the decode program
     and nothing crosses the host boundary.
     """

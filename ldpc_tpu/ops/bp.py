@@ -1,6 +1,6 @@
 """Batched belief-propagation engines (JAX/XLA).
 
-TPU-first re-design of the reference BP decoder (reference: src_cpp/bp.hpp).
+Batched re-design of the reference BP decoder (reference: src_cpp/bp.hpp).
 Instead of pointer-chasing one syndrome at a time, message passing runs over
 a batch axis: messages are ``(E, batch)`` arrays in check-major padded edge
 layout (batch minor => 128-lane aligned), and every update is a dense
@@ -91,7 +91,7 @@ def _check_to_bit_product_sum(v2c3, mask3, syndrome_i, dtype):
         jnp.concatenate([ones, jnp.cumprod(rev, axis=1)[:, :-1, :]], axis=1), axis=1
     )
     p = prefix * suffix
-    # f32 (the TPU perf path) clips to avoid inf; f64 (the exact-parity
+    # f32 (the performance path) clips to avoid inf; f64 (the exact-parity
     # mode) reproduces the reference's saturate-to-inf semantics
     if dtype == jnp.float32:
         eps = jnp.array(1e-7, dtype)
@@ -112,7 +112,7 @@ def make_parallel_decoder(
 
     Two bodies share the same semantics:
 
-    - f32 (the TPU perf path): gather-only message passing — the
+    - f32 (the performance path): gather-only message passing — the
       variable->check extrinsic is recomputed as ``llr_post[bit] - c2v``
       at the top of the check update, so each iteration is three row
       gathers and zero scatters (floating-point association differs from
@@ -146,7 +146,7 @@ def make_single_scan_decoder(
     recurrence is algebraically identical to the parallel schedule's
     (``llr_post = prior + sum(c2v)``, so ``llr_post - c2v[e]`` *is* the
     extrinsic bit->check message) — exactly the gather-only form the fast
-    TPU engine already uses, so the kernel is shared. The semantic
+    engine already uses, so the kernel is shared. The semantic
     differences that remain are preserved: single-scan is min-sum only and
     always applies the fixed ``ms_scaling_factor`` (no dynamic
     ``1 - 2^-iter`` fallback at 0.0, bp.hpp:399).
@@ -443,8 +443,6 @@ def make_soft_info_decoder(
             it = it + 1
             active = ~conv
             carry = (v2c, soft, synd, llr_arr, dec, active)
-            # NOTE: unrolling this serial sweep (static per-bit indices)
-            # was measured at only +17% on TPU for a ~2-minute compile —
             # the cost is the per-bit dependent-op chain itself, not the
             # loop machinery; the algorithm is serial by reference
             # semantics (see the SoftInfoBpDecoder bench-row note)
@@ -506,7 +504,7 @@ def make_serial_decoder(
 
     Bits update sequentially (immediate message propagation) in the order
     given by ``schedule`` — vectorized across the syndrome batch so each of
-    the n sequential steps still does (dv*dc*B) lanes of VPU work.
+    the n sequential steps still does (dv*dc*B) lanes of work.
 
     Returns ``decode(syndrome_bm: (B, m) uint8, init_llr: (n,),
     schedule: (n,) int32, key: PRNGKey) -> BpResult``.

@@ -8,9 +8,9 @@ randomly with p=0.5 — the "p-flip" rule of arXiv:2212.06985
 flip (flip.hpp:129-134).
 
 The immediate-propagation sweep is sequential per syndrome by
-construction, so the TPU layout mirrors the serial BP engine: a
+construction, so the layout mirrors the serial BP engine: a
 ``lax.fori_loop`` over bits, vmapped across the syndrome batch so each of
-the n sequential steps still fills the VPU lanes with batch work.
+the n sequential steps still does a whole batch of work.
 """
 
 import jax

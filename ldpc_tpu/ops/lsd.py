@@ -1,6 +1,6 @@
 """Batched localized-statistics decoding (LSD) on device (JAX/XLA).
 
-TPU-native re-design of the reference LSD decoder
+Batched re-design of the reference LSD decoder
 (reference: src_cpp/lsd.hpp, arXiv:2406.18655). The reference grows one
 cluster per flipped syndrome bit with an incremental PLU per cluster and,
 for ``lsd_order > 0``, runs a dense OSD search inside each cluster
@@ -17,7 +17,7 @@ decodes at once:
   (lsd.hpp:743-760).
 - ``lsd_order == w > 0``: clusters first grow until their nullity
   (non-pivot count) reaches w (lsd.hpp:786-810); then every cluster's
-  OSD-w candidate sweep runs as ONE global MXU pass: flipping a cluster's
+  OSD-w candidate sweep runs as ONE global pass: flipping a cluster's
   non-pivot column only perturbs that cluster's block of the solution, so
   the *global* Hamming weight ranks candidates correctly within each
   cluster, and a per-label segment-min picks every cluster's winner
@@ -46,9 +46,7 @@ LSD_CS = 2
 
 
 def _take1(x, idx):
-    """``take_along_axis(x, idx, axis=1)`` as a flat row-major take —
-    XLA's batched-gather emitter serializes the axis-1 form on TPU
-    (~3 ms per (1024, n) gather inside a large program; this is ~us)."""
+    """``take_along_axis(x, idx, axis=1)`` as a flat row-major take."""
     B, L = x.shape
     base = (jnp.arange(B, dtype=jnp.int32) * L)[:, None]
     return jnp.take(
@@ -98,29 +96,11 @@ def make_lsd_decoder(
     W = lsd_order
     pats_np = None if order0 else _pattern_table(lsd_method, W)
     use_singles = (not order0) and lsd_method == LSD_CS
-    from ldpc_tpu.ops.uf import (
-        grow_until_valid_fast,
-        make_masked_solver_or_none,
-    )
-
-    fast_solver = make_masked_solver_or_none(graph, dtype) if order0 else None
-    fast_solver_w = (
-        None if order0 else make_masked_solver_or_none(graph, dtype)
-    )
-    export_solver = None
-    if fast_solver_w is not None:
-        try:
-            from ldpc_tpu.ops.gf2_pallas import make_masked_export_solver
-
-            export_solver = make_masked_export_solver(graph)
-        except ValueError:
-            export_solver = None
-
     lab_iota = None if order0 else jnp.arange(m + 1, dtype=jnp.int32)
 
     def bit_labels(labels_f, in_bit, adj):
         """Cluster label of each in-cluster column (min over its active
-        adjacent checks) — one-hot MXU form; labels are f32 with
+        adjacent checks) — one-hot matmul form; labels are f32 with
         ``_INF_F`` fill (see uf._propagate_labels_mm)."""
         from ldpc_tpu.ops.uf import _INF_F
 
@@ -146,8 +126,7 @@ def make_lsd_decoder(
         B = collab_i.shape[0]
         lab = jnp.where(nonpiv_in, collab_i, _INF)
         # one two-key sort-with-payload replaces the argsort+gather
-        # cascade (element gathers run ~2 ms each on TPU in-program);
-        # stable ties on equal (lab, llr) resolve to the original column
+        # cascade; stable ties on equal (lab, llr) resolve to the original column
         # order, matching argsort(llrs, stable) composition
         col_iota = jnp.broadcast_to(
             jnp.arange(n, dtype=jnp.int32)[None, :], lab.shape
@@ -198,56 +177,10 @@ def make_lsd_decoder(
         bidx = jnp.arange(B)[:, None]
         seed_checks = syndromes == 1
 
-        if order0 and fast_solver is not None:  # fused pallas (TPU)
-            _, x0, valid = grow_until_valid_fast(
-                graph, syndromes, llrs, bits_per_step, dtype, fast_solver
-            )
-            return x0, valid
-
-        inf_d = jnp.array(np.inf, dtype)
-        row_iota = jnp.arange(m, dtype=jnp.int32)
-
         def msolve(in_bit, with_reduced=False):
             """Masked solve with everything in ORIGINAL column coords:
             (ispiv (B,n), synd_red (B,m), used (B,m), valid (B,),
             Rt (B,n+1,m) or None, prc (B,n) pivot row per column)."""
-            if export_solver is not None:
-                key = jnp.where(in_bit, llrs.astype(dtype), inf_d)
-                order_ = jnp.argsort(key, axis=1, stable=True).astype(
-                    jnp.int32
-                )
-                count = in_bit.sum(axis=1).astype(jnp.int32)
-                # the (B, m, n) matrix unpack dominates a call; skip it
-                # for the nullity-growth rounds, which only need pivots
-                R, synd_red, col_of_row, used = export_solver(
-                    syndromes, order_, count, with_reduced
-                )
-                # dense one-hot reductions instead of (B, m)->(B, n+1)
-                # scatters: XLA's TPU scatter emitter serializes them
-                # (~15 ms/call at B=1024; this form is ~0.3 ms)
-                cr = jnp.where(used, jnp.minimum(col_of_row, n), n)
-                oh = cr[:, :, None] == jnp.arange(
-                    n, dtype=cr.dtype
-                )[None, None, :]  # (B, m, n); row n (unused) drops out
-                ispiv = oh.any(axis=1)
-                prcv = (
-                    oh
-                    * (row_iota + 1).astype(jnp.int32)[None, :, None]
-                ).sum(axis=1)
-                prc = jnp.where(prcv > 0, prcv - 1, m)  # (B, n)
-                Rt = (
-                    jnp.concatenate(
-                        [
-                            R.transpose(0, 2, 1),
-                            jnp.zeros((B, 1, m), jnp.uint8),
-                        ],
-                        axis=1,
-                    )
-                    if with_reduced
-                    else None
-                )
-                valid = ~((synd_red == 1) & ~used).any(axis=1)
-                return ispiv, synd_red, used, valid, Rt, prc
             res, order_ = masked_solve(
                 graph, in_bit, syndromes, llrs, dtype,
                 with_reduced=with_reduced,
@@ -269,34 +202,25 @@ def make_lsd_decoder(
             )
             return ispiv, res.synd_red, res.row_used, res.valid, Rt, prc
 
-        if fast_solver_w is not None:
-            # fused growth (identical states to the XLA loop — the two
-            # engines' per-round join sets are equivalent)
-            in_bit, _, _ = grow_until_valid_fast(
-                graph, syndromes, llrs, bits_per_step, dtype, fast_solver_w
+        in_bit, res, order = grow_until_valid(
+            graph, syndromes, llrs, bits_per_step, dtype
+        )
+        if order0:
+            decoding = (
+                jnp.zeros((B, n), jnp.uint8).at[bidx, order].set(res.x0)
             )
-            ispiv_orig, *_ = msolve(in_bit)
-        else:
-            in_bit, res, order = grow_until_valid(
-                graph, syndromes, llrs, bits_per_step, dtype
-            )
-            if order0:
-                decoding = (
-                    jnp.zeros((B, n), jnp.uint8).at[bidx, order].set(res.x0)
-                )
-                return decoding, res.valid
-            ispiv_orig = (
-                jnp.zeros((B, n), bool).at[bidx, order].set(res.is_pivot)
-            )
+            return decoding, res.valid
+        ispiv_orig = (
+            jnp.zeros((B, n), bool).at[bidx, order].set(res.is_pivot)
+        )
 
         # ---- grow every cluster until its nullity reaches lsd_order
         # (lsd.hpp:792-810; bounded to lsd_order extra single-bit rounds)
         # labels are threaded through the rounds as warm starts: label
         # fixpoints only decrease as clusters grow/merge, so each round's
         # propagation converges in ~1 sweep instead of ~graph-diameter.
-        # All graph sweeps ride the one-hot MXU forms and all per-label
-        # reductions are dense one-hot sums — XLA's TPU gather/scatter
-        # emitters serialize the index forms (~15 ms per op at B=1024)
+        # All graph sweeps ride the one-hot matmul forms and all
+        # per-label reductions are dense one-hot sums
         from ldpc_tpu.ops.uf import (
             _INF_F,
             _adj_constants,
@@ -370,9 +294,7 @@ def make_lsd_decoder(
         # cluster are distinct, so per-block minima + a cross-block min
         # reproduce the flat segment-argmin exactly. Scores ride bit-
         # PACKED rows (popcount) and per-label reductions are dense
-        # one-hot sums — both the (B, C, m) unpacked sweep and the
-        # (B,*)->(B, m+1) scatters of the flat formulation serialize on
-        # TPU (measured ~15 ms per scatter at B=1024).
+        # one-hot sums in place of (B,*)->(B, m+1) scatters.
         Wm = -(-m // 8)
         Rt_packed = gf2.pack_bits_u8(
             Rt_orig.reshape(B * (n + 1), m)
@@ -486,7 +408,7 @@ def make_lsd_decoder(
                     jnp.where(use_slot[:, :, w], colof[:, :, w], n)
                 )
         if use_singles:
-            # winning-single columns via a one-hot MXU contraction (byte
+            # winning-single columns via a one-hot contraction (byte
             # values <= 255 are exact in bf16; f32 accumulation)
             oh_s = (
                 (

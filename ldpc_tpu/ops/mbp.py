@@ -1,6 +1,6 @@
 """Batched MBP (memory belief propagation) over GF(4) on device.
 
-TPU-native re-design of the reference quaternary decoder
+Batched re-design of the reference quaternary decoder
 (reference: src_cpp/mbp.hpp, arXiv:2104.13659 "MBP"). Pauli noise is
 decoded directly on the stabilizer matrix: each entry carries a Pauli
 type (1=X, 2=Y, 3=Z); a qubit's error anticommutes with a stabilizer
@@ -8,7 +8,7 @@ entry iff it is non-identity and differs from the entry's Pauli
 (mbp.hpp:43-56). Messages are 3-vectors (one per Pauli) on each edge.
 
 The reference sweeps qubits serially with immediate propagation
-(mbp.hpp:142-280); the TPU layout mirrors the serial BP engine: a
+(mbp.hpp:142-280); the layout mirrors the serial BP engine: a
 ``lax.fori_loop`` over qubits, vmapped across the syndrome batch.
 
 Per the reference update (product-sum mbp.hpp:147-190, min-sum

@@ -1,6 +1,6 @@
 """Batched ordered-statistics decoding on device (JAX/XLA).
 
-TPU-native re-design of the reference OSD post-processor
+Batched re-design of the reference OSD post-processor
 (reference: src_cpp/osd.hpp:110-185). The whole BP-failed subset decodes
 at once:
 
@@ -11,10 +11,12 @@ at once:
    the OSD-0 solution for every element — the pivot column set matches the
    reference's ``fast_solve``/``lu_solve`` exactly;
 3. higher orders evaluate the whole candidate block in one shot: the
-   candidate-pattern matrix (C, k) hits the gathered non-pivot PCM columns
-   on the MXU to form all shifted syndromes, the cached row transform maps
-   them to pivot solutions, and a weighted argmin (weights = log 1/p_i,
-   reference: osd.hpp:163-180) selects the winner per element.
+   candidate-pattern matrix (C, k) hits the reduced non-pivot PCM columns
+   in one 0/1 contraction to form all candidate solutions, and a weighted
+   argmin (weights = log 1/p_i, reference: osd.hpp:163-180) selects the
+   winner per element. The weight contractions run at HIGHEST precision:
+   a float32 matmul may otherwise run in TF32, whose rounding can change
+   the argmin.
 """
 
 import functools
@@ -59,183 +61,6 @@ def candidate_strings(osd_method: int, osd_order: int, k: int) -> np.ndarray:
                 c[j] = 1
                 cands.append(c)
     return np.stack(cands) if k else np.zeros((1, 0), np.uint8)
-
-
-def make_osd_sweep_tpu(
-    graph: PcmGraph,
-    channel: np.ndarray,
-    osd_method: int,
-    osd_order: int,
-    interpret: bool = False,
-):
-    """Batched OSD-w decoder on the fused rref-export kernel (TPU).
-
-    Same results as :func:`make_osd_decoder` (reference
-    osd.hpp:110-185) with a different dataflow built for TPU: the
-    elimination runs VMEM-resident (ops/gf2_pallas.make_rref_export_
-    solver) and exports the REDUCED matrix R = T @ H plus T s, so every
-    candidate solution reads off as ``y_c = Ts ^ XOR of R's candidate
-    columns`` — no m x m row transform, no per-lane column gathers (TPU
-    gathers/scatters lower to scalar loops; every sweep here is an
-    elementwise op or a one-hot MXU contraction). Weight-1 candidates
-    are scored for ALL columns at once via one batched matvec; the
-    slot-limited patterns (pairs for CS, the 2^order block for E) ride
-    a (P, W) pattern matmul over the W lowest-reliability non-pivot
-    columns.
-
-    Returns ``decode(syndromes: (B, m) uint8, llrs: (B, n)) ->
-    (osd0: (B, n) uint8, osdw: (B, n) uint8, valid: (B,) bool)``.
-    """
-    from ldpc_tpu.ops.gf2_pallas import make_rref_export_solver
-
-    m, n = graph.m, graph.n
-    rank = gf2.batched_rank(graph.dense)
-    k = n - rank
-    solver = make_rref_export_solver(graph, interpret=interpret)
-    with np.errstate(divide="ignore"):
-        w_np = np.log(1.0 / np.asarray(channel, dtype=np.float64))
-    weights_pad = jnp.asarray(
-        np.concatenate([w_np, [0.0]]).astype(np.float32)
-    )  # (n+1,), pad col -> 0
-    W = min(osd_order, k)
-    use_singles = osd_method == COMBINATION_SWEEP and k > 0
-    # slot-limited patterns: CS -> weight-2 pairs over the first W sorted
-    # non-pivots (singles ride the all-columns path); E -> all 2^W - 1
-    pats = []
-    if osd_method == EXHAUSTIVE:
-        for i in range(1, 2**W):
-            pats.append([(i >> j) & 1 for j in range(W)])
-    elif osd_method == COMBINATION_SWEEP:
-        for i in range(W):
-            for j in range(i + 1, W):
-                row = [0] * W
-                row[i] = 1
-                row[j] = 1
-                pats.append(row)
-    P = len(pats)
-    pats_d = (
-        jnp.asarray(np.asarray(pats, np.float32))
-        if P
-        else jnp.zeros((0, max(W, 1)), jnp.float32)
-    )
-    iota_n = jnp.arange(n, dtype=jnp.int32)
-    BIG = jnp.float32(3.0e38)
-
-    def mm(*args, **kw):
-        return jnp.einsum(
-            *args, preferred_element_type=jnp.float32, **kw
-        )
-
-    def decode(syndromes: jnp.ndarray, llrs: jnp.ndarray):
-        B = syndromes.shape[0]
-        bidx = jnp.arange(B)[:, None]
-        R, synd_red, col_of_row, used = solver(
-            syndromes.astype(jnp.uint8), llrs.astype(jnp.float32)
-        )
-        valid = ~((synd_red == 1) & ~used).any(axis=1)
-        # osd0 + pivot mask in one scatter: value = 2*used + sol bit
-        sol = (synd_red * used).astype(jnp.uint8)
-        enc = (
-            jnp.zeros((B, n + 1), jnp.uint8)
-            .at[bidx, col_of_row]
-            .max(sol + 2 * used.astype(jnp.uint8))
-        )[:, :n]
-        osd0 = enc & 1
-        ispiv = enc >= 2
-        if W == 0 or (P == 0 and not use_singles):
-            return osd0, osd0, valid
-
-        wrow = weights_pad[col_of_row] * used  # (B, m) const-table gather
-        sr_f = synd_red.astype(jnp.float32)
-        Rf = R.astype(jnp.float32)
-        score0 = mm("bm,bm->b", wrow, sr_f)  # baseline candidate weight
-
-        # ---- weight-1 candidates over ALL non-pivot columns ----------
-        # y_j = s ^ R[:, j]  =>  w(y_j) = score0 + sum_r wrow*(1-2s)*R
-        best_score = score0
-        kind = jnp.zeros((B,), jnp.int32)  # 0 base, 1 single, 2 pattern
-        single_col = jnp.zeros((B,), jnp.int32)
-        # reliability rank of each non-pivot column (enumeration order)
-        npkey = jnp.where(ispiv, jnp.float32(np.inf), llrs.astype(jnp.float32))
-        s_idx = jnp.argsort(npkey, axis=1, stable=True).astype(jnp.int32)
-        rank_of_col = (
-            jnp.zeros((B, n), jnp.int32)
-            .at[bidx, s_idx]
-            .set(jnp.broadcast_to(iota_n[None, :], (B, n)))
-        )
-        if use_singles:
-            delta1 = mm("bm,bmn->bn", wrow * (1.0 - 2.0 * sr_f), Rf)
-            score1 = score0[:, None] + delta1 + weights_pad[:n][None, :]
-            score1 = jnp.where(ispiv, BIG, score1)
-            min1 = score1.min(axis=1)
-            # reference tie-break: first minimum in sorted-np enumeration
-            tie = jnp.where(
-                score1 == min1[:, None], rank_of_col, jnp.int32(2**30)
-            )
-            j1_rank = tie.min(axis=1)
-            take1 = min1 < best_score
-            best_score = jnp.where(take1, min1, best_score)
-            kind = jnp.where(take1, 1, kind)
-            # column with that rank
-            single_col = jnp.where(
-                take1,
-                jnp.take_along_axis(
-                    s_idx, jnp.minimum(j1_rank, n - 1)[:, None], axis=1
-                )[:, 0],
-                single_col,
-            )
-
-        # ---- slot-limited patterns over the W sorted non-pivots ------
-        pat_idx = jnp.zeros((B,), jnp.int32)
-        if P:
-            np_orig_W = s_idx[:, :W]  # (B, W) sorted non-pivot columns
-            onehotW = (
-                np_orig_W[:, :, None] == iota_n[None, None, :]
-            ).astype(jnp.float32)  # (B, W, n)
-            Rsel = mm("bwn,bmn->bmw", onehotW, Rf)  # (B, m, W)
-            Z = mm("pw,bmw->bmp", pats_d, Rsel)  # (B, m, P)
-            Y = sr_f[:, :, None] + Z
-            Y = Y - 2.0 * jnp.floor(Y * 0.5)  # mod 2
-            wt_W = weights_pad[np_orig_W]  # (B, W)
-            score_p = mm("bm,bmp->bp", wrow, Y) + mm(
-                "pw,bw->bp", pats_d, wt_W
-            )
-            minp = score_p.min(axis=1)
-            tie = jnp.where(
-                score_p == minp[:, None],
-                jnp.arange(P, dtype=jnp.int32)[None, :],
-                jnp.int32(2**30),
-            )
-            p_star = tie.min(axis=1)
-            takep = minp < best_score
-            best_score = jnp.where(takep, minp, best_score)
-            kind = jnp.where(takep, 2, kind)
-            pat_idx = jnp.where(takep, p_star, pat_idx)
-
-        # ---- reconstruct the winning solution ------------------------
-        onehot_j = (single_col[:, None] == iota_n[None, :]).astype(
-            jnp.float32
-        ) * (kind == 1)[:, None].astype(jnp.float32)
-        y = sr_f + mm("bn,bmn->bm", onehot_j, Rf)
-        flip = onehot_j
-        if P:
-            onehot_p = (
-                pat_idx[:, None] == jnp.arange(P, dtype=jnp.int32)[None, :]
-            ).astype(jnp.float32) * (kind == 2)[:, None].astype(jnp.float32)
-            y = y + mm("bp,bmp->bm", onehot_p, Z)
-            flip_w = mm("bp,pw->bw", onehot_p, pats_d)
-            flip = flip + mm("bw,bwn->bn", flip_w, onehotW)
-        y = y - 2.0 * jnp.floor(y * 0.5)
-        ybits = (y > 0.5) & used
-        osdw = (
-            jnp.zeros((B, n + 1), jnp.uint8)
-            .at[bidx, col_of_row]
-            .max(ybits.astype(jnp.uint8))
-        )[:, :n]
-        osdw = osdw | (flip > 0.5).astype(jnp.uint8)
-        return osd0, osdw, valid
-
-    return jax.jit(decode)
 
 
 def make_osd_decoder(
@@ -295,7 +120,7 @@ def make_osd_decoder(
         # candidate solutions read straight off the REDUCED matrix:
         # y_c = Ts ^ XOR of reduced non-pivot columns selected by c —
         # no m x m row transform is ever formed (select + contract as
-        # one-hot MXU matmuls; 0/1 sums < 2^24, exact in f32)
+        # one-hot matmuls; 0/1 sums < 2^24, exact in f32 and TF32)
         oh_np = (
             np_pos[:, :, None] == jnp.arange(n, dtype=np_pos.dtype)[None, None, :]
         ).astype(jnp.float32)  # (B, k, n)
@@ -314,9 +139,7 @@ def make_osd_decoder(
         yf = res.synd_red[:, None, :].astype(jnp.float32) + yd
         y = (yf - 2.0 * jnp.floor(yf * 0.5)).astype(jnp.uint8)  # (B, C, m)
         # pivot-coordinate solutions per candidate. xp[b,c,i] =
-        # y[b,c,piv_row_of_col[b,i]] — as a one-hot MXU contraction, NOT
-        # take_along_axis: a (B, C, n) gather lowers to scalar dynamic
-        # slices on TPU (~650 ms at bucket 1024 vs ~1 ms here). Non-pivot
+        # y[b,c,piv_row_of_col[b,i]] as a one-hot contraction. Non-pivot
         # columns have piv_row == m -> all-zero one-hot row -> xp 0.
         sel = (
             res.piv_row_of_col[:, :, None]
@@ -331,9 +154,14 @@ def make_osd_decoder(
         xp = xpf.astype(jnp.uint8)  # exact: one-hot selection of 0/1
         # weights: pivot part + candidate part (osd.hpp:163-180)
         wt_perm = weights[order]  # (B, n)
-        w_piv = jnp.einsum("bcn,bn->bc", xp.astype(dtype), wt_perm)
+        hi = jax.lax.Precision.HIGHEST
+        w_piv = jnp.einsum(
+            "bcn,bn->bc", xp.astype(dtype), wt_perm, precision=hi
+        )
         wt_np = weights[np_orig]  # (B, k)
-        w_cand = jnp.einsum("ck,bk->bc", cands.astype(dtype), wt_np)
+        w_cand = jnp.einsum(
+            "ck,bk->bc", cands.astype(dtype), wt_np, precision=hi
+        )
         total_w = w_piv + w_cand  # (B, C)
         best = jnp.argmin(total_w, axis=1)  # first-minimum == strict < sweep
         xp_best = jnp.take_along_axis(

@@ -1,9 +1,9 @@
 """PCM compiler: scipy sparse parity-check matrix -> padded device layout.
 
 The reference library walks a doubly-linked pointer sparse structure
-(reference: src_cpp/sparse_matrix_base.hpp:105-118). On TPU we replace it
-with static padded index arrays ("ELL" layout) built once per code and
-resident in HBM:
+(reference: src_cpp/sparse_matrix_base.hpp:105-118). On the device we
+replace it with static padded index arrays ("ELL" layout) built once per
+code and resident in device memory:
 
 - check-major edges: edge ``e = check*dc + slot`` with ``bit_of_edge[e]``
   giving the column (pad slots point at a dummy bit ``n``);

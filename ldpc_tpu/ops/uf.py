@@ -1,6 +1,6 @@
 """Batched union-find decoding on device (JAX/XLA).
 
-TPU-native re-design of the reference union-find decoder
+Batched re-design of the reference union-find decoder
 (reference: src_cpp/union_find.hpp, Delfosse-Nickerson arXiv:1709.06218 +
 the Higgott "BeliefFind" LLR-guided variant). The reference grows
 pointer-linked clusters one syndrome at a time; here the whole batch
@@ -23,12 +23,9 @@ decodes simultaneously with dense primitives:
   end, every cluster's solution at once.
 - **Peeling validity/solve** (union_find.hpp:85,205-312): for column
   degree <= 2, "parity even or boundary bit present" coincides with the
-  inversion mode's syndrome-in-image rule, so growth is shared; on TPU
-  the peeling result itself is ONE elimination over
-  [interior, boundary]-ordered in-cluster columns, whose greedy pivots
-  are exactly a spanning forest plus one boundary edge per component —
-  its unique solution IS the tree solution iterative peeling finds. The
-  CPU path keeps an explicit BFS forest + parallel leaf peeling.
+  inversion mode's syndrome-in-image rule, so growth is shared; the
+  peeling result comes from an explicit BFS forest + parallel leaf
+  peeling.
 """
 
 from typing import Tuple
@@ -98,7 +95,7 @@ def _grow(graph: PcmGraph, in_bit, labels, chk_invalid, llrs, bits_per_step, dty
     per-cluster sequential growth, where every cluster draws from its
     own boundary list regardless of the round's other additions
     (union_find.hpp:164-194, lsd.hpp:111-148). Identical join sets to
-    the fused engine's :func:`_grow_round_mm`."""
+    the matmul-form :func:`_grow_round_mm`."""
     n = graph.n
     var_chks = jnp.asarray(graph.var_chks)
     var_mask = jnp.asarray(graph.var_mask)
@@ -123,7 +120,7 @@ def _grow(graph: PcmGraph, in_bit, labels, chk_invalid, llrs, bits_per_step, dty
     sub = jnp.argsort(llr_e, axis=1, stable=True).astype(jnp.int32)
     pos = jnp.broadcast_to(jnp.arange(E2, dtype=jnp.int32)[None, :], (B, E2))
     grown = in_bit
-    # one bit per cluster per sub-round, exactly like the fused engine's
+    # one bit per cluster per sub-round, exactly like the matmul-form
     # iterated min-key pick (the candidate pool shrinks as other
     # clusters' picks land)
     for _ in range(bits_per_step):
@@ -213,29 +210,12 @@ def invalid_checks_from_rref(res, labels, m):
 _INF_F = jnp.float32(1.0e7)  # exact in f32; > any label/key
 
 
-def _growth_span(n: int) -> int:
-    """Key span for the fused growth path: smallest power of two > n-1,
-    so ``label * span + rank`` (rank in [0, n)) never collides across
-    labels."""
-    return 1 << max(1, int(n - 1).bit_length())
-
-
-def fused_growth_supported(graph: PcmGraph) -> bool:
-    """f32-exactness bound for the fused growth keys: every real key
-    ``label * span + rank`` (label < m, rank < n) must be an exactly
-    representable integer in float32, i.e. < 2**24. ``_INF_F`` must also
-    dominate every label."""
-    span = _growth_span(graph.n)
-    return (graph.m - 1) * span + (graph.n - 1) < 2**24 and graph.m < 1e7
-
-
 def _adj_constants(graph: PcmGraph):
-    """Dense one-hot slot-gather matrices for MXU-native graph sweeps.
+    """Dense one-hot slot-gather matrices for matmul-form graph sweeps.
 
     ``Gv[k]`` (m, n): column j selects check ``var_chks[j, k]`` — so
     ``x_chk @ Gv[k]`` gathers a per-check value onto bits, slot k.
     ``Gc[k]`` (n, m): column i selects bit ``chk_bits[i, k]``.
-    TPU gathers/scatters lower poorly; one-hot matmuls ride the MXU.
     """
     m, n, dc, dv = graph.m, graph.n, graph.dc, graph.dv
     Gv = np.zeros((dv, m, n), np.float32)
@@ -260,7 +240,7 @@ def _adj_constants(graph: PcmGraph):
 
 
 def _propagate_labels_mm(graph: PcmGraph, adj, in_bit, seed_checks, warm=None):
-    """:func:`_propagate_labels` with every graph sweep as one-hot MXU
+    """:func:`_propagate_labels` with every graph sweep as one-hot
     matmuls + elementwise mins (identical fixpoint)."""
     Gv, Gc, maskv, maskc, A = adj
     m = graph.m
@@ -304,23 +284,6 @@ def _propagate_labels_mm(graph: PcmGraph, adj, in_bit, seed_checks, warm=None):
 
     lab, _ = jax.lax.while_loop(lambda s: s[1], step, (lab0, jnp.array(True)))
     return lab, active_chk
-
-
-def make_masked_solver_or_none(graph: PcmGraph, dtype):
-    """The fused pallas cluster solver when usable (TPU, f32, fits VMEM);
-    None selects the XLA engine."""
-    import jax as _jax
-
-    if _jax.default_backend() != "tpu" or dtype != jnp.float32:
-        return None
-    if not fused_growth_supported(graph):
-        return None
-    try:
-        from ldpc_tpu.ops.gf2_pallas import make_masked_solver
-
-        return make_masked_solver(graph)
-    except ValueError:
-        return None
 
 
 def _grow_round_mm(graph, adj, in_bit, bad_row, llr_rank, bits_per_step):
@@ -415,203 +378,6 @@ def _grow_round_mm(graph, adj, in_bit, bad_row, llr_rank, bits_per_step):
     return grown, any_invalid
 
 
-def _fast_round_fns(graph, syndromes, llrs, bits_per_step, dtype, solver):
-    """Shared per-round machinery of the fused growth loop."""
-    adj = _adj_constants(graph)
-    syn_u8 = syndromes.astype(jnp.uint8)
-    inf = jnp.array(np.inf, dtype)
-    sub = jnp.argsort(llrs.astype(dtype), axis=1, stable=True)
-    llr_rank = jnp.argsort(sub, axis=1, stable=True).astype(jnp.float32)
-
-    def solve(in_bit):
-        key = jnp.where(in_bit, llrs.astype(dtype), inf)
-        order = jnp.argsort(key, axis=1, stable=True).astype(jnp.int32)
-        count = in_bit.sum(axis=1).astype(jnp.int32)
-        return solver(syn_u8, order, count)
-
-    def round_body(state_i):
-        (in_bit, _, _, _), i = state_i
-        x0, bad_row = solve(in_bit)
-        new_in, any_invalid = _grow_round_mm(
-            graph, adj, in_bit, bad_row, llr_rank, bits_per_step
-        )
-        new_in = jnp.where(any_invalid[:, None], new_in, in_bit)
-        return (new_in, x0, bad_row, any_invalid), i + 1
-
-    return solve, round_body
-
-
-def grow_until_valid_fast(
-    graph: PcmGraph, syndromes, llrs, bits_per_step, dtype, solver,
-    in_bit0=None,
-):
-    """:func:`grow_until_valid` on the fused pallas cluster solver.
-
-    Identical pivot choices (in-cluster columns, ascending LLR, first
-    unused 1-row), so solutions match the XLA engine bit-for-bit; the
-    per-round elimination only walks each lane's own cluster columns
-    instead of re-streaming the whole masked PCM from HBM, and the
-    growth/validity decisions ride :func:`_grow_round_mm`'s single
-    stacked floodfill. ``in_bit0`` resumes lanes from a prior growth
-    state (the staged two-phase path).
-
-    Returns ``(in_bit, x0: (B, n) uint8 in ORIGINAL coordinates,
-    valid: (B,) bool)``.
-    """
-    m, n = graph.m, graph.n
-    B = syndromes.shape[0]
-    _, round_body = _fast_round_fns(
-        graph, syndromes, llrs, bits_per_step, dtype, solver
-    )
-
-    def cond(state_i):
-        (_, _, _, any_invalid), i = state_i
-        return jnp.any(any_invalid) & (i <= n)
-
-    state0 = (
-        (
-            jnp.zeros((B, n), bool) if in_bit0 is None else in_bit0,
-            jnp.zeros((B, n), jnp.uint8),
-            jnp.zeros((B, m), bool),
-            jnp.ones(B, bool),
-        ),
-        jnp.int32(0),
-    )
-    (in_bit, x0, bad_row, _), _ = jax.lax.while_loop(
-        cond, round_body, state0
-    )
-    return in_bit, x0, ~bad_row.any(axis=1)
-
-
-def grow_staged_fast(
-    graph: PcmGraph,
-    syndromes,
-    llrs,
-    bits_per_step,
-    dtype,
-    solver,
-    K: int,
-    phase1_rounds: int = 2,
-):
-    """Two-phase fused growth for big standalone batches: a fixed number
-    of rounds on the whole batch, then the unbounded while loop only on
-    the device-compacted top-``K`` still-invalid lanes (most lanes'
-    clusters validate within a round or two, so the expensive straggler
-    tail runs at a fraction of the batch). Exact: phase 2 resumes each
-    compacted lane from its phase-1 state, so final states match the
-    single-loop path lane-for-lane.
-
-    Returns ``(in_bit, x0, valid, nfail)`` — callers must redo with
-    ``K = B`` when ``nfail > K`` (bucket overflow).
-    """
-    m, n = graph.m, graph.n
-    B = syndromes.shape[0]
-    _, round_body = _fast_round_fns(
-        graph, syndromes, llrs, bits_per_step, dtype, solver
-    )
-
-    def body(i, state):
-        new_state, _ = round_body((state, jnp.int32(i)))
-        return new_state
-
-    state0 = (
-        jnp.zeros((B, n), bool),
-        jnp.zeros((B, n), jnp.uint8),
-        jnp.zeros((B, m), bool),
-        jnp.ones(B, bool),
-    )
-    in_bit, x0, bad_row, any_invalid = jax.lax.fori_loop(
-        0, phase1_rounds, body, state0
-    )
-    nfail = any_invalid.sum().astype(jnp.int32)
-    order = jnp.argsort(~any_invalid, stable=True)  # invalid lanes first
-    idx = order[:K]
-    in2, x02, valid2 = grow_until_valid_fast(
-        graph,
-        jnp.take(syndromes, idx, axis=0),
-        jnp.take(llrs, idx, axis=0),
-        bits_per_step,
-        dtype,
-        solver,
-        in_bit0=jnp.take(in_bit, idx, axis=0),
-    )
-    in_bit = in_bit.at[idx].set(in2)
-    x0 = x0.at[idx].set(x02)
-    valid = (~bad_row.any(axis=1)).at[idx].set(valid2)
-    return in_bit, x0, valid, nfail
-
-
-def grow_staged_multi(
-    graph: PcmGraph,
-    syndromes,
-    llrs,
-    bits_per_step,
-    dtype,
-    solver,
-    levels,
-):
-    """Progressive straggler compaction for slow-growing configurations
-    (``bits_per_step == 1``: one bit per cluster per round, so lanes
-    need O(cluster-size) rounds and the round count has a long tail).
-
-    ``levels`` is a list of ``(rounds, K)``: run ``rounds`` fixed growth
-    rounds, then compact the still-invalid lanes to the top ``K`` and
-    continue; after the last level the unbounded while loop finishes the
-    final subset. Exact for the same reason :func:`grow_staged_fast`
-    is — every compacted lane resumes from its own growth state, and a
-    lane that validated mid-level keeps re-solving its frozen cluster.
-
-    Returns ``(x0, valid, excess)``; ``excess > 0`` means some level's
-    still-invalid count exceeded its K (results for the dropped lanes
-    are phase-state only) — the caller must redo unstaged.
-    """
-    m, n = graph.m, graph.n
-    B0 = syndromes.shape[0]
-    g_x0 = jnp.zeros((B0, n), jnp.uint8)
-    g_valid = jnp.zeros((B0,), bool)
-    gidx = jnp.arange(B0, dtype=jnp.int32)
-    cur_syn, cur_llr = syndromes, llrs
-    cur_in = jnp.zeros((B0, n), bool)
-    excess = jnp.int32(0)
-    for rounds, K in levels:
-        _, round_body = _fast_round_fns(
-            graph, cur_syn, cur_llr, bits_per_step, dtype, solver
-        )
-
-        def body(i, state, _rb=round_body):
-            new_state, _ = _rb((state, jnp.int32(i)))
-            return new_state
-
-        B = cur_syn.shape[0]
-        state0 = (
-            cur_in,
-            jnp.zeros((B, n), jnp.uint8),
-            jnp.zeros((B, m), bool),
-            jnp.ones(B, bool),
-        )
-        in_bit, x0, bad_row, any_invalid = jax.lax.fori_loop(
-            0, rounds, body, state0
-        )
-        nfail = any_invalid.sum().astype(jnp.int32)
-        excess = jnp.maximum(excess, nfail - K)
-        # bank every lane's current state; still-invalid lanes carry on
-        g_x0 = g_x0.at[gidx].set(x0)
-        g_valid = g_valid.at[gidx].set(~bad_row.any(axis=1))
-        order = jnp.argsort(~any_invalid, stable=True)
-        idx = order[:K]
-        gidx = jnp.take(gidx, idx)
-        cur_syn = jnp.take(cur_syn, idx, axis=0)
-        cur_llr = jnp.take(cur_llr, idx, axis=0)
-        cur_in = jnp.take(in_bit, idx, axis=0)
-    _, x0f, validf = grow_until_valid_fast(
-        graph, cur_syn, cur_llr, bits_per_step, dtype, solver,
-        in_bit0=cur_in,
-    )
-    g_x0 = g_x0.at[gidx].set(x0f)
-    g_valid = g_valid.at[gidx].set(validf)
-    return g_x0, g_valid, excess
-
-
 def grow_until_valid(graph: PcmGraph, syndromes, llrs, bits_per_step, dtype):
     """The shared UF/LSD growth loop: grow invalid clusters until every
     cluster's syndrome is in the image of its sub-PCM
@@ -655,9 +421,6 @@ def make_uf_decoder(
     graph: PcmGraph,
     bits_per_step: int = 0,
     dtype=jnp.float32,
-    staged_K: int = 0,
-    phase1_rounds: int = 2,
-    staged_levels=None,
 ):
     """Build a jitted batched union-find inversion-mode decoder
     (union_find.hpp:485-532).
@@ -665,12 +428,9 @@ def make_uf_decoder(
     ``bits_per_step == 0`` grows every boundary bit of every invalid
     cluster per round; otherwise the ``bits_per_step`` lowest-LLR
     boundary bits per cluster join per round (the BeliefFind mode).
-    ``staged_K > 0`` (TPU, big standalone batches) runs the two-phase
-    compacted growth (:func:`grow_staged_fast`) and additionally returns
-    the phase-1 still-invalid count for overflow detection.
 
     Returns ``decode(syndromes: (B, m) uint8, llrs: (B, n)) ->
-    (decoding: (B, n) uint8, valid: (B,) bool[, nfail])``.
+    (decoding: (B, n) uint8, valid: (B,) bool)``.
     """
     if bits_per_step >= graph.n:
         # a per-cluster rank bound of >= n admits every boundary bit, so
@@ -679,30 +439,9 @@ def make_uf_decoder(
         # rank-selection machinery unrolls ``bits_per_step`` sweeps
         bits_per_step = 0
 
-    solver = make_masked_solver_or_none(graph, dtype)
-    if (staged_K or staged_levels) and solver is None:
-        raise ValueError("staged growth requires the fused solver (TPU)")
-
     def decode(syndromes: jnp.ndarray, llrs: jnp.ndarray):
         B = syndromes.shape[0]
         syndromes = syndromes.astype(jnp.uint8)
-        if staged_levels is not None:
-            x0, valid, excess = grow_staged_multi(
-                graph, syndromes, llrs, bits_per_step, dtype, solver,
-                staged_levels,
-            )
-            return x0, valid, excess
-        if staged_K:
-            _, x0, valid, nfail = grow_staged_fast(
-                graph, syndromes, llrs, bits_per_step, dtype, solver,
-                K=staged_K, phase1_rounds=phase1_rounds,
-            )
-            return x0, valid, nfail
-        if solver is not None:  # fused pallas cluster solves (TPU)
-            _, x0, valid = grow_until_valid_fast(
-                graph, syndromes, llrs, bits_per_step, dtype, solver
-            )
-            return x0, valid
         bidx = jnp.arange(B)[:, None]
         _, res, order = grow_until_valid(
             graph, syndromes, llrs, bits_per_step, dtype
@@ -720,8 +459,6 @@ def make_peel_decoder(
     graph: PcmGraph,
     bits_per_step: int = 0,
     dtype=jnp.float32,
-    staged_K: int = 0,
-    phase1_rounds: int = 2,
 ):
     """Build a jitted batched union-find peeling decoder
     (union_find.hpp:428-480).
@@ -730,12 +467,10 @@ def make_peel_decoder(
     edges between their two checks; degree-1 ("planar boundary") bits
     connect to a virtual boundary check (union_find.hpp:205-251).
 
-    TPU design: three MXU-native stages, no device scatters or dynamic
-    gathers (both lower to scalar loops on TPU and were ~50x the cost of
-    the whole decode):
+    Three stages, every graph sweep a one-hot matmul:
 
     1. **Growth** is shared with the inversion decoder
-       (:func:`grow_until_valid_fast`): for column degree <= 2 a
+       (:func:`grow_until_valid`): for column degree <= 2 a
        cluster's syndrome is in the image of its columns exactly when
        its parity is even or it contains a degree-1 (boundary) column —
        the reference's peel validity rule (union_find.hpp:460-463) — so
@@ -916,7 +651,7 @@ def make_peel_decoder(
     def peel(tree, syndromes):
         """Parallel leaf peeling: resolve every current leaf check per
         round (union_find.hpp:253-312); the tree solution is unique so
-        order does not matter. All graph traffic rides one-hot MXU
+        order does not matter. All graph traffic rides one-hot
         contractions."""
         B = tree.shape[0]
         synd0 = syndromes.astype(jnp.float32)  # (B, m) real checks
@@ -980,64 +715,14 @@ def make_peel_decoder(
         leftover = (synd > 0.5).any(axis=1)
         return dec.astype(jnp.uint8), ~leftover
 
-    solver = make_masked_solver_or_none(graph, dtype)
-    if staged_K and solver is None:
-        raise ValueError("staged growth requires the fused solver (TPU)")
-    iota_f = jnp.arange(n, dtype=jnp.float32)[None, :]
-    interior_f = jnp.asarray(~bnd_np)[None, :]
-
-    def forest_solve(in_bit, syndromes):
-        """The peeling result as ONE elimination, no explicit forest.
-
-        Over GF(2), a set of interior edge columns (two 1s each) is
-        independent iff it contains no cycle, and a boundary column
-        (one 1) is dependent on a cluster's interior tree plus another
-        boundary column of the same cluster. Greedy elimination over the
-        in-cluster columns ordered [interior ascending, boundary
-        ascending] therefore pivots on exactly a spanning forest of each
-        cluster plus at most one boundary edge per component — the same
-        structure the reference's union-find forest has — and its
-        solution (support on pivot columns only) IS that forest's unique
-        tree solution, which is what iterative peeling computes
-        (union_find.hpp:253-312). Validity = no unreduced syndrome-1
-        row, i.e. parity even or boundary present, per component."""
-        key = jnp.where(
-            in_bit,
-            jnp.where(interior_f, iota_f, iota_f + jnp.float32(n)),
-            jnp.float32(np.inf),
-        )
-        order = jnp.argsort(key, axis=1, stable=True).astype(jnp.int32)
-        count = in_bit.sum(axis=1).astype(jnp.int32)
-        x0, bad_row = solver(syndromes, order, count)
-        return x0, ~bad_row.any(axis=1)
-
     def decode(syndromes: jnp.ndarray, llrs: jnp.ndarray):
         syndromes = syndromes.astype(jnp.uint8)
         seed_checks = syndromes == 1
-        nfail = None
-        if staged_K:
-            in_bit, _, _, nfail = grow_staged_fast(
-                graph, syndromes, llrs, bits_per_step, dtype, solver,
-                K=staged_K, phase1_rounds=phase1_rounds,
-            )
-        elif solver is not None:
-            in_bit, _, _ = grow_until_valid_fast(
-                graph, syndromes, llrs, bits_per_step, dtype, solver
-            )
-        else:
-            in_bit, _, _ = grow_until_valid(
-                graph, syndromes, llrs, bits_per_step, dtype
-            )
-        if solver is not None:
-            dec, valid = forest_solve(in_bit, syndromes)
-        else:
-            labels, _ = _propagate_labels_mm(
-                graph, adj, in_bit, seed_checks
-            )
-            tree = build_forest(in_bit, labels)
-            dec, valid = peel(tree, syndromes)
-        if staged_K:
-            return dec, valid, nfail
-        return dec, valid
+        in_bit, _, _ = grow_until_valid(
+            graph, syndromes, llrs, bits_per_step, dtype
+        )
+        labels, _ = _propagate_labels_mm(graph, adj, in_bit, seed_checks)
+        tree = build_forest(in_bit, labels)
+        return peel(tree, syndromes)
 
     return jax.jit(decode)

@@ -1,4 +1,4 @@
-"""Multi-chip distribution layer (mesh, shardings, collectives).
+"""Multi-device distribution layer (mesh, shardings, collectives).
 
 The reference has no parallel backend at all (OpenMP is stubbed out,
 reference: src_cpp/bp.hpp:136-140; no MPI/NCCL anywhere) — every decode is
@@ -6,7 +6,7 @@ one syndrome on one core. Here the syndrome batch is the first-class
 data-parallel axis: decode programs are pure jitted functions of
 ``(B, m)`` syndrome arrays, so distribution is expressed entirely through
 ``jax.sharding`` — place the batch axis over the mesh and XLA inserts the
-(tiny) collectives for global convergence flags and statistics over ICI.
+(tiny) collectives for global convergence flags and statistics.
 """
 
 from ldpc_tpu.parallel.sharding import (  # noqa: F401

@@ -1,22 +1,23 @@
-"""Multi-host (pod-scale) initialization harness.
+"""Multi-host initialization harness.
 
 The reference has no distributed backend at all (SURVEY.md §2.4: OpenMP
-stubbed out, no MPI/NCCL). On TPU pods, multi-host execution is one
-SPMD program per host process over a global device set; the only
+stubbed out, no MPI/NCCL). Across hosts, execution is one SPMD program
+per host process over a global device set; the only
 host-side plumbing needed is `jax.distributed.initialize` with a
 coordinator rendezvous. This module wraps that with environment
 autodetection so the same Monte-Carlo / decode scripts run unchanged on:
 
-- one host, N local chips (no-op),
-- a TPU pod slice under the TPU runtime (auto-detected coordinator),
+- one host, N local devices (no-op),
+- a cluster whose scheduler JAX auto-detects (coordinator found by
+  ``jax.distributed.initialize``),
 - a generic cluster via explicit ``LDPC_TPU_COORDINATOR`` /
   ``LDPC_TPU_NUM_PROCESSES`` / ``LDPC_TPU_PROCESS_ID`` env vars.
 
 After :func:`initialize`, ``jax.devices()`` spans every host and the
 meshes built by :func:`ldpc_tpu.parallel.make_mesh` (and the sharded MC
-/ QSS / window steps) place data over the whole pod: intra-slice
-collectives ride ICI, cross-host ride DCN — all inserted by XLA from
-the sharding annotations, never hand-rolled transport.
+/ QSS / window steps) place data over every host: the collectives are
+inserted by XLA from the sharding annotations (NCCL on GPUs), never
+hand-rolled transport.
 """
 
 import os
@@ -46,8 +47,8 @@ def initialize(
 
     Resolution order for each parameter: explicit argument ->
     ``LDPC_TPU_*`` environment variable -> runtime autodetection
-    (`jax.distributed.initialize` with no args, which understands the
-    TPU pod metadata server and common cluster schedulers). On a single
+    (`jax.distributed.initialize` with no args, which understands
+    common cluster schedulers). On a single
     host with no coordinator configured this is a no-op returning 0.
     """
     global _initialized
@@ -61,7 +62,7 @@ def initialize(
         process_id = int(os.environ[_ENV_PID])
 
     if coordinator_address is None and num_processes is None:
-        # single-host (or TPU-runtime-managed): nothing to rendezvous
+        # single host: nothing to rendezvous
         return jax.process_index()
 
     jax.distributed.initialize(

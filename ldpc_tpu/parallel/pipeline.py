@@ -8,9 +8,9 @@ a compaction step between them (``device_mc.make_mc_decoder_step``,
 and OSD-0 have comparable per-batch cost and splitting them idles half the
 machine during ramp-up. This module provides the true pipelined variant
 for deployments where the two stages run on *heterogeneous* device pools
-(e.g. BP on most chips, the control-flow-heavy GF(2) elimination on a
-smaller pool) or where per-stage VMEM working sets individually exceed a
-single core.
+(e.g. BP on most devices, the control-flow-heavy GF(2) elimination on a
+smaller pool) or where per-stage working sets individually exceed one
+device's memory.
 
 Design (GPipe-style, SPMD over a ``stage`` mesh axis of size 2):
 
@@ -21,7 +21,7 @@ Design (GPipe-style, SPMD over a ``stage`` mesh axis of size 2):
   only its stage's work.
 - The inter-stage payload (syndrome, BP posterior LLRs, BP decoding,
   convergence flag — one packed f32 buffer) moves stage 0 -> stage 1 via
-  one ``lax.ppermute`` per step, riding ICI.
+  one ``lax.ppermute`` per step.
 - A ``batch`` mesh axis can be combined with ``stage``: microbatches are
   data-parallel within each stage group, and the ppermute pairs devices
   with equal batch coordinates.

@@ -5,10 +5,10 @@ batch of syndromes; all distribution is data-parallel over the batch
 (SURVEY.md §2.4). These helpers build the mesh, pad + place the batch on
 it, and let XLA's computation-follows-data propagation shard the whole
 decode — the convergence ``all`` inside the BP while_loop and any batch
-statistics become ICI all-reduces automatically, with no hand-written
+statistics become all-reduces automatically, with no hand-written
 communication.
 
-The same helpers drive single-host multi-chip (one jax process, N local
+The same helpers drive single-host multi-device (one jax process, N local
 devices) and multi-host pods (``jax.distributed.initialize`` +
 ``jax.devices()`` spanning hosts); nothing here is host-count-aware.
 """
@@ -76,7 +76,7 @@ def psum_tally(values, mesh: Mesh, axis_name: str = BATCH_AXIS):
     mesh — the distributed Monte-Carlo statistics reduction.
 
     ``values`` is a batch-sharded array; the result is a replicated scalar
-    (XLA lowers the sum of a sharded axis to a psum over ICI).
+    (XLA lowers the sum of a sharded axis to a psum).
     """
     with mesh:
         return jax.jit(

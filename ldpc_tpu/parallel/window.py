@@ -18,8 +18,8 @@ over shots, and the rounds axis can shard across a mesh:
 - :func:`make_rounds_sharded_window_decoder` — the same computation
   pipelined over a mesh axis: device ``d`` owns a contiguous block of
   windows; shots stream through the devices in microbatches (GPipe-style
-  schedule) and the inter-window carry rides ``lax.ppermute`` over ICI to
-  the right-hand neighbour. Results are bit-identical to the
+  schedule) and the inter-window carry rides ``lax.ppermute`` to the
+  right-hand neighbour. Results are bit-identical to the
   single-device scan for any device count: the (window, microbatch)
   computation DAG is unchanged — only its placement moves.
 
@@ -70,7 +70,8 @@ class WindowDecodeResult(NamedTuple):
 
 
 def _mod2_matmul_f32(x_u8: jnp.ndarray, Ht_f32: jnp.ndarray) -> jnp.ndarray:
-    """(B, n) u8 @ (n, m) f32 -> (B, m) u8 mod 2 on the MXU."""
+    """(B, n) u8 @ (n, m) f32 -> (B, m) u8 mod 2 (0/1 operands: exact
+    at any matmul precision)."""
     y = jnp.dot(
         x_u8.astype(jnp.float32), Ht_f32, preferred_element_type=jnp.float32
     )
@@ -104,7 +105,6 @@ def _build_core(
     osd: bool = True,
     postprocess: str = "osd0",
     bits_per_step: int = 1,
-    use_pallas: Optional[bool] = None,
     sigma: Optional[float] = None,
     last_round_rate: float = 1e-15,
 ) -> _WindowCore:
@@ -150,37 +150,21 @@ def _build_core(
         raise ValueError(
             f"window postprocess must be 'osd0' or 'lsd0', not {postprocess}"
         )
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu" and sigma is None
-    bp_fn = osd_fn = None
-    if use_pallas:
-        try:
-            from ldpc_tpu.ops.bp_pallas import make_parallel_decoder_pallas
-            from ldpc_tpu.ops.gf2_pallas import make_osd0_solver
+    bp_fn = bp_ops.make_parallel_decoder(
+        graph3d, method, max_iter, ms_scaling_factor
+    )
+    osd_fn = None
+    if osd and postprocess == "osd0":
+        from ldpc_tpu.ops import osd as osd_ops
 
-            bp_fn = make_parallel_decoder_pallas(
-                graph3d, method, max_iter, ms_scaling_factor
-            )
-            if osd and postprocess == "osd0":
-                osd_fn = make_osd0_solver(graph3d)
-        except ValueError as exc:
-            if "VMEM budget" not in str(exc):
-                raise
-            bp_fn = None  # window PCM too large for the fused kernel
-    if bp_fn is None:
-        bp_fn = bp_ops.make_parallel_decoder(
-            graph3d, method, max_iter, ms_scaling_factor
+        _xla_osd = osd_ops.make_osd_decoder(
+            graph3d, channel_mid, osd_ops.OSD_0, 0
         )
-        if osd and postprocess == "osd0":
-            from ldpc_tpu.ops import osd as osd_ops
 
-            _xla_osd = osd_ops.make_osd_decoder(
-                graph3d, channel_mid, osd_ops.OSD_0, 0
-            )
+        def osd_fn(syn, llr):
+            d0, _, valid = _xla_osd(syn, llr)
+            return d0, valid
 
-            def osd_fn(syn, llr):
-                d0, _, valid = _xla_osd(syn, llr)
-                return d0, valid
     if osd and postprocess == "lsd0":
         from ldpc_tpu.ops import lsd as lsd_ops
 

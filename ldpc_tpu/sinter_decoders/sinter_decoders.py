@@ -8,7 +8,7 @@ convert to check/observable matrices
 construct the decoder with the DEM priors as the error channel, decode
 shots, project corrections through the observables matrix.
 
-TPU-native difference: shots decode through ``decode_batch`` in one
+Batched difference: shots decode through ``decode_batch`` in one
 device program instead of the reference's per-shot Python loop
 (sinter_bposd_decoder.py:118-119) — this is precisely the bottleneck
 batching removes.

@@ -8,7 +8,7 @@ fused kernel dominates, whether the host link is the bottleneck — so the
 hooks wrap the JAX profiler:
 
 - :func:`trace` — capture a TensorBoard/XProf device trace of a code
-  region (kernel timeline, HBM traffic, ICI collectives).
+  region (kernel timeline, memory traffic, collectives).
 - :func:`annotate` — name a region so it is attributable in the trace.
 - :class:`StageTimer` — host-side per-stage wall-clock breakdown with
   ``block_until_ready`` fencing, for quick "where did the time go"

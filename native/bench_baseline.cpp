@@ -3,7 +3,7 @@
 // Measures the reference C++ BP(+OSD) decoder's single-core throughput on
 // this machine by #including the reference headers (mounted read-only at
 // -I <reference>/src_cpp). This file is a *driver* of the reference, not
-// part of the new framework's decode path — the TPU framework never links
+// part of the new framework's decode path — the framework never links
 // against it; bench.py compiles and runs it to compute `vs_baseline`.
 //
 // stdin:  m n

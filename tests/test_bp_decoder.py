@@ -2,7 +2,7 @@
 
 Modeled on the reference test strategy (reference:
 python_test/test_bp_decoder.py): constructor/property validation, golden
-rep-code decodings, exhaustive small-code sweeps, plus TPU-native batch
+rep-code decodings, exhaustive small-code sweeps, plus batch
 equivalence checks the reference lacks.
 """
 

@@ -5,6 +5,8 @@ import itertools
 import numpy as np
 import pytest
 
+import jax
+
 from ldpc_tpu import BpOsdDecoder
 from ldpc_tpu.codes import hamming_code, rep_code, surface_code
 
@@ -150,3 +152,92 @@ def test_bit_packed_input_validation():
     bad = np.zeros((4, 99), np.uint8)
     with pytest.raises(ValueError, match="Bit-packed"):
         d.decode_batch(bad, bit_packed_syndromes=True)
+
+
+# primitives that move or reshape values without changing them
+_VALUE_PRESERVING = {
+    "transpose", "reshape", "broadcast_in_dim", "squeeze", "expand_dims",
+    "copy", "copy_p", "slice", "dynamic_slice", "gather", "concatenate",
+}
+
+
+def _sub_jaxprs(eqn):
+    """``(jaxpr, invars_match_operands)`` for each jaxpr in eqn's params."""
+    from jax.extend import core as jcore
+
+    for val in eqn.params.values():
+        for item in val if isinstance(val, (tuple, list)) else (val,):
+            if isinstance(item, jcore.ClosedJaxpr):
+                item = item.jaxpr
+            if isinstance(item, jcore.Jaxpr):
+                yield item, len(item.invars) == len(eqn.invars)
+
+
+def _f32_dots_without_highest(jaxpr, exact=frozenset()):
+    """float32 dot_generals in ``jaxpr`` (recursively) that may run in
+    TF32 and round: precision below HIGHEST, with an operand that is not
+    converted from bool or integer 0/1 data (TF32 keeps those exact).
+    ``exact`` holds the invars known to be such data."""
+    import numpy as onp
+    from jax.extend import core as jcore
+
+    exact = set(exact)
+    bad = []
+    for eqn in jaxpr.eqns:
+        prim = eqn.primitive.name
+        ins = [v for v in eqn.invars if not isinstance(v, jcore.Literal)]
+        if prim == "convert_element_type":
+            src = eqn.invars[0].aval.dtype
+            if onp.issubdtype(src, onp.integer) or src == onp.bool_:
+                exact.add(eqn.outvars[0])
+            elif ins and all(v in exact for v in ins):
+                exact.add(eqn.outvars[0])
+        elif prim in _VALUE_PRESERVING:
+            if ins and all(v in exact for v in ins):
+                exact.update(eqn.outvars)
+        elif prim == "dot_general":
+            prec = eqn.params.get("precision")
+            precs = prec if isinstance(prec, tuple) else (prec,)
+            highest = all(p == jax.lax.Precision.HIGHEST for p in precs)
+            f32 = any(v.aval.dtype == onp.float32 for v in eqn.invars)
+            both_exact = all(v in exact for v in ins)
+            if f32 and not highest and not both_exact:
+                bad.append(str(eqn))
+            (lhs_c, _), _ = eqn.params["dimension_numbers"]
+            depth = int(onp.prod([ins[0].aval.shape[d] for d in lhs_c]))
+            if both_exact and depth <= 2048:
+                # sums of <= 2048 0/1 products are integers that TF32's
+                # 11 significant bits still hold exactly
+                exact.update(eqn.outvars)
+        for sub, matched in _sub_jaxprs(eqn):
+            sub_exact = (
+                {
+                    iv
+                    for iv, ov in zip(sub.invars, eqn.invars)
+                    if not isinstance(ov, jcore.Literal) and ov in exact
+                }
+                if matched
+                else set()
+            )
+            bad += _f32_dots_without_highest(sub, sub_exact)
+    return bad
+
+
+@pytest.mark.parametrize("method", ["osd_e", "osd_cs"])
+def test_osd_weight_sums_are_not_tf32(method):
+    """On a GPU a float32 matmul at default precision may run in TF32,
+    which can reorder OSD-E/CS candidates: every float32 contraction of
+    real-valued data in the sweep must ask for HIGHEST precision."""
+    import jax.numpy as jnp
+
+    from ldpc_tpu.ops import osd as osd_ops
+    from ldpc_tpu.ops.pcm import compile_pcm
+
+    code = surface_code(3)
+    graph = compile_pcm(code.hx)
+    meth = osd_ops.EXHAUSTIVE if method == "osd_e" else osd_ops.COMBINATION_SWEEP
+    fn = osd_ops.make_osd_decoder(graph, np.full(graph.n, 0.05), meth, 3)
+    syn = jnp.zeros((4, graph.m), jnp.uint8)
+    llr = jnp.zeros((4, graph.n), jnp.float32)
+    jaxpr = jax.make_jaxpr(fn)(syn, llr).jaxpr
+    assert _f32_dots_without_highest(jaxpr) == []

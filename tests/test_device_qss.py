@@ -32,7 +32,6 @@ def test_qss_step_low_noise_no_failures():
     step, runs = make_qss_step(
         H, 0.002, 0.002, L,
         repetitions=4, rounds=8, batch_size=64, max_iter=12,
-        use_pallas=False,
     )
     out = np.asarray(step(jax.random.key(0)))
     assert out[0] == runs == 64
@@ -45,7 +44,6 @@ def test_qss_step_deterministic():
     step, _ = make_qss_step(
         H, 0.05, 0.05, L,
         repetitions=4, rounds=8, batch_size=32, max_iter=8,
-        use_pallas=False,
     )
     a = np.asarray(step(jax.random.key(3)))
     b = np.asarray(step(jax.random.key(3)))
@@ -57,7 +55,7 @@ def test_qss_step_analog_mode():
     step, runs = make_qss_step(
         H, 0.01, 0.01, L,
         repetitions=4, rounds=8, batch_size=32, max_iter=8,
-        analog_tg=True, use_pallas=False,
+        analog_tg=True,
     )
     out = np.asarray(step(jax.random.key(1)))
     assert out[0] == runs
@@ -95,7 +93,7 @@ def test_device_qss_matches_host_simulator_ler():
 
     dev = DeviceQss(
         H, per, ser, L, seed=5, batch_size=512, max_iter=16,
-        xyz_error_bias=(1.0, 0.0, 0.0), use_pallas=False, **kw,
+        xyz_error_bias=(1.0, 0.0, 0.0), **kw,
     )
     dev_out = dev.run(samples=2048)
     n_dev = dev_out["nr_runs"]
@@ -113,7 +111,7 @@ def test_device_qss_checkpoint_resume():
     H, L = toric1d()
     a = DeviceQss(
         H, 0.03, 0.03, L, seed=2, batch_size=64,
-        repetitions=4, rounds=8, max_iter=8, use_pallas=False,
+        repetitions=4, rounds=8, max_iter=8,
     )
     a.run(samples=128)
     state = a.checkpoint()
@@ -121,7 +119,7 @@ def test_device_qss_checkpoint_resume():
 
     b = DeviceQss(
         H, 0.03, 0.03, L, seed=2, batch_size=64,
-        repetitions=4, rounds=8, max_iter=8, use_pallas=False,
+        repetitions=4, rounds=8, max_iter=8,
     )
     b.restore(state)
     b.run(samples=256)
@@ -135,7 +133,7 @@ def test_sharded_qss_step_runs_and_tallies():
     mesh = make_mesh(len(jax.devices()))
     step, runs = make_sharded_qss_step(
         H, 0.03, 0.03, L, mesh=mesh, batch_size_per_device=16,
-        repetitions=4, rounds=8, max_iter=8, use_pallas=False,
+        repetitions=4, rounds=8, max_iter=8,
     )
     out = np.asarray(step(jax.random.key(0)))
     assert out[0] == runs == 16 * len(jax.devices())
@@ -150,7 +148,6 @@ def test_qss_step_rep_code_z_side():
         H, 0.01, 0.01, L,
         repetitions=4, rounds=8, batch_size=32, max_iter=8,
         check_side="Z", xyz_error_bias=(1.0, 0.0, 0.0),
-        use_pallas=False,
     )
     out = np.asarray(step(jax.random.key(2)))
     assert out[0] == runs

@@ -100,7 +100,7 @@ def test_window_decoder_matches_host_loop_rep_code():
     syn, _ = gen_history(H, R, p_data, p_meas, B, seed=11)
 
     decode = make_window_decoder(
-        H, W, p_data, p_meas, max_iter=20, use_pallas=False
+        H, W, p_data, p_meas, max_iter=20
     )
     res = decode(syn)
     host = host_offline_window_decode(H, syn, W, p_data, p_meas)
@@ -115,7 +115,7 @@ def test_window_decoder_matches_host_loop_surface3():
     syn, _ = gen_history(H, R, p_data, p_meas, B, seed=7)
 
     decode = make_window_decoder(
-        H, W, p_data, p_meas, max_iter=20, use_pallas=False
+        H, W, p_data, p_meas, max_iter=20
     )
     res = decode(syn)
     host = host_offline_window_decode(H, syn, W, p_data, p_meas)
@@ -124,7 +124,7 @@ def test_window_decoder_matches_host_loop_surface3():
 
 def test_window_decoder_zero_syndromes():
     H = rep_code(5)
-    decode = make_window_decoder(H, 4, 0.05, 0.02, use_pallas=False)
+    decode = make_window_decoder(H, 4, 0.05, 0.02)
     syn = np.zeros((3, H.shape[0], 8), np.uint8)
     res = decode(syn)
     assert not np.asarray(res.correction).any()
@@ -137,7 +137,7 @@ def test_window_decoder_low_noise_corrects():
     H = rep_code(12)
     W, B, R = 6, 32, 15  # NW = 4
     syn, err = gen_history(H, R, 0.004, 0.003, B, seed=3)
-    decode = make_window_decoder(H, W, 0.004, 0.003, use_pallas=False)
+    decode = make_window_decoder(H, W, 0.004, 0.003)
     corr = np.asarray(decode(syn).correction)
     residual = corr ^ err
     Hd = np.asarray(H.todense())
@@ -159,7 +159,7 @@ def test_rounds_sharded_equivalence(ndev):
     R = (NW + 1) * T
     syn, _ = gen_history(H, R, 0.03, 0.02, B, seed=21)
 
-    plain = make_window_decoder(H, W, 0.03, 0.02, max_iter=16, use_pallas=False)
+    plain = make_window_decoder(H, W, 0.03, 0.02, max_iter=16)
     want = plain(syn)
 
     mesh = make_mesh(ndev, axis_name="rounds")
@@ -172,7 +172,6 @@ def test_rounds_sharded_equivalence(ndev):
         n_windows=NW,
         microbatches=4,
         max_iter=16,
-        use_pallas=False,
     )
     got = sharded(syn)
     np.testing.assert_array_equal(
@@ -209,7 +208,7 @@ def test_window_decoder_analog_mode():
             analog[:, :, t] = 1.0 - 2.0 * s
             syn[:, :, t] = s
     decode = make_window_decoder(
-        H, W, 0.01, 0.05, sigma=sigma, use_pallas=False
+        H, W, 0.01, 0.05, sigma=sigma
     )
     corr = np.asarray(decode(syn, analog).correction)
     residual = corr ^ err
@@ -225,7 +224,7 @@ def test_window_decoder_lsd_engine():
     W, B, R = 6, 32, 15
     syn, err = gen_history(H, R, 0.004, 0.003, B, seed=5)
     decode = make_window_decoder(
-        H, W, 0.004, 0.003, use_pallas=False, postprocess="lsd0"
+        H, W, 0.004, 0.003, postprocess="lsd0"
     )
     corr = np.asarray(decode(syn).correction)
     residual = corr ^ err
@@ -237,7 +236,7 @@ def test_window_decoder_lsd_engine():
     Hs = surface_code(5).hx
     syn2, err2 = gen_history(Hs, 10, 0.01, 0.01, 8, seed=7)
     dec2 = make_window_decoder(
-        Hs, 4, 0.01, 0.01, use_pallas=False, postprocess="lsd0"
+        Hs, 4, 0.01, 0.01, postprocess="lsd0"
     )
     corr2 = np.asarray(dec2(syn2).correction)
     Hd2 = np.asarray(Hs.todense())

@@ -394,3 +394,43 @@ def test_merge_decoder_bench_sweeps(tmp_path):
     assert rec["baseline"] == 11.0                   # median baseline
     assert rec["vs_matched_baseline"] == round(140.0 / 11.0, 2)
     assert rec["sweeps"] == 2
+
+
+@pytest.mark.parametrize("env_dir", [True, False])
+def test_compile_cache_dir(monkeypatch, tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR wins and no other directory is set;
+    without it the cache sits at the fixed <checkout>/.jax_cache."""
+    import jax
+
+    from ldpc_tpu.utils.compile_cache import enable_compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        if env_dir:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+            assert enable_compile_cache() == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == before
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            want = os.path.join(root, ".jax_cache")
+            assert enable_compile_cache() == want
+            assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_chip_smoke_refuses_cpu():
+    """chip_smoke.py measures the GPU only: on the CPU it exits non-zero
+    and never prints the success line."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "chip_smoke.py")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

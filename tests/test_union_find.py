@@ -2,7 +2,7 @@
 
 Mirrors the reference's exhaustive-syndrome pattern
 (reference: cpp_test/TestUnionFind.cpp, python_test/test_qcodes.py) plus
-TPU-specific batched-equivalence checks.
+batched-equivalence checks.
 """
 
 import numpy as np

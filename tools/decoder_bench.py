@@ -84,6 +84,9 @@ def main():
 
     import jax
 
+    from ldpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from ldpc_tpu import (
         BeliefFindDecoder,
         BpDecoder,

@@ -33,6 +33,9 @@ def main():
 
     import jax
 
+    from ldpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from ldpc_tpu.codes import surface_code
     from ldpc_tpu.parallel.window import make_window_decoder
 
